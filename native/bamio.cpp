@@ -2,10 +2,10 @@
 // into the columnar arrays the device kernels consume.
 //
 // Replaces the reference's samtools-text pipelines and BamTools reader
-// (TERefiner/bam_parse.cpp) on the host side of the TPU framework.
+// (TERefiner/bam_parse.cpp) on the host side of the framework.
 // C ABI (ctypes-friendly), no Python headers required.
 //
-// Layout contract mirrors gappadder_tpu/io/bam.py (Alignments) and
+// Layout contract mirrors gappadder/io/bam.py (Alignments) and
 // io/fastq.py (ReadSet); name hashing = FNV-1a 64 over the normalized
 // name (token before whitespace, trailing /1 or /2 stripped).
 

@@ -3,17 +3,15 @@
 Variants:
   persetting  one assemble_unitigs call per (k, sub_k)  (round-4 path)
   multi       one assemble_unitigs_multi call (all settings batched)
-Both with / without the Pallas bitonic sort (GPT_PSORT=1 to enable).
 
-Usage: python scripts/dbgbench.py [--cpu] [--gaps=16] [--variant=both]
-Prints one JSON line per variant (slope-timed).
+Usage: python scripts/dbgbench.py [--gaps=16] [--variant=both]
+Prints one JSON line per variant: the median of warmed calls, each
+waited for with block_until_ready.
 """
 
-import functools
 import json
 import os
 import sys
-import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
@@ -24,8 +22,6 @@ import numpy as np
 
 def main():
     import jax
-    if "--cpu" in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
     gaps = 16
     variants = ["persetting", "multi"]
     for a in sys.argv[1:]:
@@ -35,17 +31,14 @@ def main():
             v = a.split("=")[1]
             if v != "both":
                 variants = [v]
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(_ROOT, ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from gappadder.utils.jaxcache import setup_compile_cache
+    from gappadder.utils.meters import time_blocked
+    setup_compile_cache()
 
     import jax.numpy as jnp
-    from gappadder_tpu import dna
-    from gappadder_tpu.ops import dbg
-    from gappadder_tpu.parallel.slice import SliceDims
+    from gappadder import dna
+    from gappadder.ops import dbg
+    from gappadder.parallel.slice import SliceDims
     from slice_bench import PRODUCTION_KSET
 
     # production-shape distinct-kmer tables: synthesize G gaps of
@@ -99,40 +92,14 @@ def main():
             settings=dims.kset, max_unitigs=mu, max_len=Lc,
             min_len=ml, node_cap=ncap, edge_cap=ncap)
 
-    def slope(fn, k_lo=1, k_hi=3, repeats=7):
-        def chain(K):
-            @jax.jit
-            def c(x):
-                s = x
-                for _ in range(K):
-                    # w == 0 always, but data-dependent on the previous
-                    # iteration: the K copies cannot be deduped/hoisted
-                    w = jnp.where(s < 0, 1, 0).astype(jnp.int32)
-                    outs = fn(w)
-                    s = sum(jnp.sum(o[1]) for o in outs) + s
-                return s
-            return c
-        times = {}
-        for K in (k_lo, k_hi):
-            f = chain(K)
-            np.asarray(f(jnp.int32(0)))
-            best = float("inf")
-            for _ in range(repeats):
-                t0 = time.time()
-                np.asarray(f(jnp.int32(0)))
-                best = min(best, time.time() - t0)
-            times[K] = best
-        return (times[k_hi] - times[k_lo]) / (k_hi - k_lo)
-
     for v in variants:
-        fn = run_persetting if v == "persetting" else run_multi
-        t = slope(fn)
+        fn = jax.jit(run_persetting if v == "persetting" else run_multi)
+        t = time_blocked(lambda: fn(jnp.int32(0)))
         print(json.dumps({
-            "variant": v, "gaps": gaps,
-            "psort": bool(os.environ.get("GPT_PSORT")),
-            "ms": round(t * 1e3, 2),
-            "gaps_per_s_equiv": round(gaps / t, 1),
-            "backend": jax.default_backend()}), flush=True)
+            "variant": v, "gaps": gaps, "ms": t * 1e3,
+            "gaps_per_s_equiv": gaps / t,
+            "backend": jax.default_backend(),
+            "device": jax.devices()[0].device_kind}), flush=True)
 
 
 if __name__ == "__main__":

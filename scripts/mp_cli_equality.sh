@@ -18,20 +18,20 @@ cfg = {
                     {"k": 31, "k_velvet": [{"k": 27}]}],
     "parameters": {"working_folder": "$D/work_mp$np", "min_gap_size": 50,
                    "flank_length": 150, "nthreads": 1, "verbose": 0},
-    "tpu": {"use_pallas": False, "mesh_shape": [8], "gap_batch": 32},
+    "device": {"mesh_shape": [8], "gap_batch": 32},
 }
 open("$D/cfg_mp$np.json", "w").write(json.dumps(cfg).replace("False", "false"))
 PYEOF
 done
 rm -rf $D/work_mp1 $D/work_mp4 $D/work_mp8
 echo "== 1 proc =="
-time python -m gappadder_tpu.cli -c All -g $D/cfg_mp1.json --coordinator 127.0.0.1:29811 --num-processes 1 --process-id 0 --cpu-devices 8 > /tmp/mp480_1.log 2>&1
+time python -m gappadder.cli -c All -g $D/cfg_mp1.json --coordinator 127.0.0.1:29811 --num-processes 1 --process-id 0 --cpu-devices 8 > /tmp/mp480_1.log 2>&1
 for np in 4 8; do
   echo "== $np proc =="
   port=$((29820 + np))
   pids=()
   for pid in $(seq 0 $((np - 1))); do
-    python -m gappadder_tpu.cli -c All -g $D/cfg_mp$np.json \
+    python -m gappadder.cli -c All -g $D/cfg_mp$np.json \
       --coordinator 127.0.0.1:$port --num-processes $np \
       --process-id $pid --cpu-devices $((8 / np)) \
       > /tmp/mp480_${np}_$pid.log 2>&1 &

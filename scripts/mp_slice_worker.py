@@ -31,9 +31,9 @@ jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
 import numpy as np  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 
-from gappadder_tpu import dna  # noqa: E402
-from gappadder_tpu.parallel import slice as sl  # noqa: E402
-from gappadder_tpu.parallel.mesh import make_mesh  # noqa: E402
+from gappadder import dna  # noqa: E402
+from gappadder.parallel import slice as sl  # noqa: E402
+from gappadder.parallel.mesh import make_mesh  # noqa: E402
 
 n_shards = nproc * local_devs
 assert len(jax.devices()) == n_shards, (pid, jax.devices())

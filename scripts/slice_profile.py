@@ -1,48 +1,38 @@
-"""Per-block slope timing of the fused slice step.
+"""Per-block timing of the fused slice step.
 
 Times nested prefixes of the step pipeline (classify | +route/group |
-+payload gather | +assemble | full step incl. pick) at bench shapes;
-consecutive differences give per-block cost. Same dependency-chained
-slope-timing discipline as slice_bench (docs/kernel-notes.md).
++payload gather | +kmers | +assemble | full step incl. pick) at bench
+shapes, each the median of warmed steps waited for with
+block_until_ready; consecutive differences give per-block cost.
 
-Usage: python scripts/slice_profile.py [--cpu] [--gaps=16] [--skew]
+Usage: python scripts/slice_profile.py [--gaps=16] [--skew] [--production]
 Prints one JSON dict {block: seconds_per_step}.
 """
 
-import functools
 import json
 import os
 import sys
-import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
-import numpy as np
-
 
 def main():
     import jax
-    if "--cpu" in sys.argv:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", 8)
     gaps = 16
     skew = "--skew" in sys.argv
     production = "--production" in sys.argv
     for a in sys.argv[1:]:
         if a.startswith("--gaps="):
             gaps = int(a.split("=")[1])
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(_ROOT, ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from gappadder.utils.jaxcache import setup_compile_cache
+    setup_compile_cache()
 
     import jax.numpy as jnp
-    from gappadder_tpu import dna
-    from gappadder_tpu.parallel import slice as sl
-    from gappadder_tpu.parallel.mesh import make_mesh
+    from gappadder import dna
+    from gappadder.parallel import slice as sl
+    from gappadder.parallel.mesh import make_mesh
+    from gappadder.utils.meters import time_blocked
     sys.path.insert(0, os.path.join(_ROOT, "scripts"))
     from slice_bench import bench_scenario
 
@@ -100,41 +90,20 @@ def main():
             return score.sum() + ulen.sum()
         return fn
 
-    def slope_time(fn, k_lo=1, k_hi=5, repeats=5):
+    def step_time(fn):
         from jax.sharding import PartitionSpec as P
-        sharded = jax.shard_map(fn, mesh=mesh,
-                                in_specs=sl.step_specs(mesh)[0],
-                                out_specs=P(), check_vma=False)
+        step = jax.jit(jax.shard_map(fn, mesh=mesh,
+                                     in_specs=sl.step_specs(mesh)[0],
+                                     out_specs=P(), check_vma=False))
+        return time_blocked(lambda: step(*placed))
 
-        def chain(K):
-            @jax.jit
-            def c(*a):
-                s = jnp.zeros((), jnp.int32)
-                for _ in range(K):
-                    w = jnp.where(s < 0, 1, 0).astype(a[1].dtype)
-                    s = s + sharded(a[0], a[1] + w,
-                                    *a[2:]).astype(jnp.int32)
-                return s
-            return c
-
-        times = {}
-        for K in (k_lo, k_hi):
-            f = chain(K)
-            np.asarray(f(*placed))
-            best = float("inf")
-            for _ in range(repeats):
-                t0 = time.time()
-                np.asarray(f(*placed))
-                best = min(best, time.time() - t0)
-            times[K] = best
-        return (times[k_hi] - times[k_lo]) / (k_hi - k_lo)
-
-    out = {"backend": jax.default_backend(), "gaps": gaps, "skew": skew,
-           "production": production}
+    out = {"backend": jax.default_backend(),
+           "device": jax.devices()[0].device_kind, "gaps": gaps,
+           "skew": skew, "production": production}
     prev = 0.0
     for b in ("classify", "route", "gather", "kmers", "assemble",
               "full"):
-        t = slope_time(prefix_fn(b))
+        t = step_time(prefix_fn(b))
         out[b + "_s"] = round(t, 6)
         out[b + "_delta_ms"] = round((t - prev) * 1e3, 3)
         prev = t

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import bam as bam_io
+from gappadder import dna
+from gappadder.io import bam as bam_io
 
 MIN_ANCHOR = 20
 

@@ -4,7 +4,7 @@ hardening item: CIGAR/flag fuzz)."""
 import numpy as np
 import pytest
 
-from gappadder_tpu.io import bam as bam_io, native
+from gappadder.io import bam as bam_io, native
 
 
 def _roundtrip(tmp_path, recs):

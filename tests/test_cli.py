@@ -5,14 +5,14 @@ import json
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import fasta
+from gappadder import dna
+from gappadder.io import fasta
 
 import read_simulator
 
 
 def test_cli_all_and_resume(tmp_path, rng, capsys):
-    from gappadder_tpu.cli import main
+    from gappadder.cli import main
 
     L, gl = 2000, 140
     truth = "".join(np.array(list("ACGT"))[rng.integers(0, 4, L)])
@@ -29,7 +29,7 @@ def test_cli_all_and_resume(tmp_path, rng, capsys):
         "kmer_length": [{"k": 25, "k_velvet": [{"k": 21}]}],
         "parameters": {"working_folder": "work", "min_gap_size": 50,
                        "flank_length": 150, "nthreads": 1, "verbose": 0},
-        "tpu": {"use_pallas": False, "read_batch": 4096},
+        "device": {"read_batch": 4096},
     }
     (tmp_path / "work").mkdir()
     with open(tmp_path / "config.json", "w") as fh:
@@ -77,7 +77,7 @@ def test_example_config_parses():
     schema) parses, incl. a bam-less self-mapping library."""
     import json
     import os
-    from gappadder_tpu.config import config_from_dict
+    from gappadder.config import config_from_dict
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.path.join(root, "examples", "configuration.json")
     with open(path) as fh:

@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from gappadder_tpu.config import Config, Library
-from gappadder_tpu.io import bam as bam_io
-from gappadder_tpu.io import fasta, fastq
-from gappadder_tpu.pipeline import collect, preprocess
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder.config import Config, Library
+from gappadder.io import bam as bam_io
+from gappadder.io import fasta, fastq
+from gappadder.pipeline import collect, preprocess
+from gappadder.pipeline.workspace import Workspace
 
 import reference_oracle as oracle
 
@@ -169,9 +169,9 @@ def test_collect_parity_with_oracle(tmp_path, insert_size, std):
 def test_device_union_matches_host(tmp_path):
     """The device-side dedup + hash-join (ops/recruit) must produce the
     same recruitment set as the host numpy oracle path."""
-    from gappadder_tpu.pipeline.collect import collect_library, \
+    from gappadder.pipeline.collect import collect_library, \
         read_bam_any, read_fastq_any
-    from gappadder_tpu.pipeline.workspace import Workspace
+    from gappadder.pipeline.workspace import Workspace
     rng = np.random.default_rng(3)
     recs = _gen_records(rng)
     cfg, ws, gaps, rec, readsets = _pipeline_run(tmp_path, recs, 900, 100)
@@ -194,8 +194,8 @@ def test_mesh_sharded_collect_matches(tmp_path):
     """collect_library under an 8-device mesh == single-device result
     (the production classify running sharded, not just the dryrun)."""
     import jax
-    from gappadder_tpu.parallel.mesh import make_mesh
-    from gappadder_tpu.pipeline.collect import collect_library, \
+    from gappadder.parallel.mesh import make_mesh
+    from gappadder.pipeline.collect import collect_library, \
         read_bam_any, read_fastq_any
     rng = np.random.default_rng(3)
     recs = _gen_records(rng)
@@ -223,14 +223,14 @@ def test_mesh_ecap_regrow_with_inflight_batches(tmp_path):
     silently corrupted shard >= 1 segments)."""
     import dataclasses
     import jax
-    from gappadder_tpu.parallel.mesh import make_mesh
-    from gappadder_tpu.pipeline.collect import collect_library, \
+    from gappadder.parallel.mesh import make_mesh
+    from gappadder.pipeline.collect import collect_library, \
         read_bam_any, read_fastq_any
     rng = np.random.default_rng(3)
     recs = _gen_records(rng)
     cfg, ws, gaps, rec, readsets = _pipeline_run(tmp_path, recs, 300, 50)
     cfg = dataclasses.replace(
-        cfg, tpu=dataclasses.replace(cfg.tpu, read_batch=64))
+        cfg, device=dataclasses.replace(cfg.device, read_batch=64))
     lib = cfg.libraries[0]
     aln = read_bam_any(lib.bam)
     left = read_fastq_any(lib.left_fq)

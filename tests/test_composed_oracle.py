@@ -46,10 +46,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import fasta
-from gappadder_tpu.ops import sw_host
-from gappadder_tpu.pipeline import pick as pick_mod
+from gappadder import dna
+from gappadder.io import fasta
+from gappadder.ops import sw_host
+from gappadder.pipeline import pick as pick_mod
 
 import read_simulator
 import reference_oracle as oracle
@@ -240,7 +240,7 @@ KSET = [(25, 21), (25, 19)]
 
 
 def test_full_driver_composed_oracle(ref_binary, tmp_path, rng):  # noqa: F811
-    from gappadder_tpu.cli import main
+    from gappadder.cli import main
 
     flank_len, min_gap = 150, 50
     b = np.array(list("ACGT"))
@@ -271,7 +271,7 @@ def test_full_driver_composed_oracle(ref_binary, tmp_path, rng):  # noqa: F811
 
     bam_records, lfq, rfq = read_simulator.simulate(
         truth, spans, 2600, rng, read_len=100, insert=300, std=30)
-    from gappadder_tpu.io import bam as bam_io
+    from gappadder.io import bam as bam_io
     bam_io.write_bam(str(tmp_path / "lib.bam"),
                      [("scaf0", len(truth))], bam_records)
     for path, entries in ((tmp_path / "lib_1.fastq", lfq),
@@ -288,7 +288,7 @@ def test_full_driver_composed_oracle(ref_binary, tmp_path, rng):  # noqa: F811
         "parameters": {"working_folder": "work", "min_gap_size": min_gap,
                        "flank_length": flank_len, "nthreads": 1,
                        "verbose": 0},
-        "tpu": {"use_pallas": False, "read_batch": 8192},
+        "device": {"read_batch": 8192},
     }
     (tmp_path / "work").mkdir()
     with open(tmp_path / "config.json", "w") as fh:

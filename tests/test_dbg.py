@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops import dbg, kmers
+from gappadder import dna
+from gappadder.ops import dbg, kmers
 
 
 def _kstrings_of(seq: str, k: int):
@@ -205,8 +205,8 @@ def test_bubble_pop_leaves_long_divergence(rng):
 def test_bubble_pop_batch_wiring(rng):
     # pipeline wiring: noisy reads + ci0 + bubble popping recovers the
     # full truth contig (the tour-bus path instead of the adaptive filter)
-    from gappadder_tpu.config import Config
-    from gappadder_tpu.pipeline import assemble
+    from gappadder.config import Config
+    from gappadder.pipeline import assemble
 
     k, sub_k = 21, 15
     truth = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 150)])

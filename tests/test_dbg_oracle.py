@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops import dbg
+from gappadder import dna
+from gappadder.ops import dbg
 
 
 def _revcomp_s(s):

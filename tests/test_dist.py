@@ -12,8 +12,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gappadder_tpu.parallel import dist
-from gappadder_tpu.parallel.mesh import make_mesh
+from gappadder.parallel import dist
+from gappadder.parallel.mesh import make_mesh
 
 
 def host_route(payloads, dest, valid, n_shards):
@@ -30,27 +30,14 @@ def host_route(payloads, dest, valid, n_shards):
     return out, src
 
 
-def _ragged_mesh_or_skip():
-    """The ragged route needs a TPU (no XLA:CPU ragged-all-to-all
-    thunk); on hardware CI use however many chips exist."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("ragged_all_to_all is TPU-only")
-    n = len(jax.devices())
-    return make_mesh(shape=(n,), axes=("dp",), devices=jax.devices()), n
-
-
-@pytest.mark.parametrize("impl,mesh_axes", [
-    ("dense", ("dp",)), ("dense", ("dp", "sp")), ("ragged", ("dp",))])
-def test_route_matches_oracle(rng, impl, mesh_axes):
-    if impl == "ragged":
-        mesh, N = _ragged_mesh_or_skip()
+@pytest.mark.parametrize("mesh_axes", [("dp",), ("dp", "sp")])
+def test_route_matches_oracle(rng, mesh_axes):
+    devs = jax.devices()[:8]
+    if len(mesh_axes) == 1:
+        mesh = make_mesh(shape=(8,), axes=mesh_axes, devices=devs)
     else:
-        devs = jax.devices()[:8]
-        if len(mesh_axes) == 1:
-            mesh = make_mesh(shape=(8,), axes=mesh_axes, devices=devs)
-        else:
-            mesh = make_mesh(shape=(4, 2), axes=mesh_axes, devices=devs)
-        N = 8
+        mesh = make_mesh(shape=(4, 2), axes=mesh_axes, devices=devs)
+    N = 8
     cap, out_cap, L = 16, 64, 5
 
     dest = rng.integers(0, N, (N, cap)).astype(np.int32)
@@ -58,8 +45,7 @@ def test_route_matches_oracle(rng, impl, mesh_axes):
     pay1 = rng.integers(0, 1 << 30, (N, cap)).astype(np.int32)
     pay2 = rng.integers(0, 4, (N, cap, L)).astype(np.int8)
 
-    router = dist.make_router(mesh, n_payloads=2, out_cap=out_cap,
-                              impl=impl)
+    router = dist.make_router(mesh, n_payloads=2, out_cap=out_cap)
     (r1, r2), src, n_recv = router(
         (dist.place_dp(mesh, pay1.reshape(-1)),
          dist.place_dp(mesh, pay2.reshape(N * cap, L))),
@@ -92,8 +78,7 @@ def test_dense_route_empty_and_skewed(rng):
     valid[1] = True       # only shard 1 sends; everything to shard 3
     pay = np.arange(N * cap, dtype=np.int32).reshape(N, cap)
 
-    router = dist.make_router(mesh, n_payloads=1, out_cap=out_cap,
-                              impl="dense")
+    router = dist.make_router(mesh, n_payloads=1, out_cap=out_cap)
     (r,), src, n_recv = router((dist.place_dp(mesh, pay.reshape(-1)),),
                                dist.place_dp(mesh, dest.reshape(-1)),
                                dist.place_dp(mesh, valid.reshape(-1)))
@@ -113,25 +98,17 @@ def test_send_tables():
     assert np.asarray(order).tolist() == [1, 3, 0, 2, 4]
 
 
-@pytest.mark.parametrize("impl", ["dense", "ragged"])
-def test_route_overflow_drops_highest_ranks(rng, impl):
+def test_route_overflow_drops_highest_ranks(rng):
     """out_cap smaller than demand: rows are dropped deterministically
     from the HIGHEST source ranks, delivered rows stay intact, and
     n_recv reports the RAW demand so the caller can detect the loss."""
-    if impl == "ragged":
-        mesh, N = _ragged_mesh_or_skip()
-        cap = 8
-        out_cap = max(1, N * cap - 4)   # force a deterministic drop
-    else:
-        mesh = make_mesh(shape=(4,), axes=("dp",),
-                         devices=jax.devices()[:4])
-        N, cap, out_cap = 4, 8, 12      # demand to shard 0 = 32 > 12
+    mesh = make_mesh(shape=(4,), axes=("dp",), devices=jax.devices()[:4])
+    N, cap, out_cap = 4, 8, 12      # demand to shard 0 = 32 > 12
     dest = np.zeros((N, cap), np.int32)
     valid = np.ones((N, cap), bool)
     pay = (np.arange(N * cap, dtype=np.int32)).reshape(N, cap)
 
-    router = dist.make_router(mesh, n_payloads=1, out_cap=out_cap,
-                              impl=impl)
+    router = dist.make_router(mesh, n_payloads=1, out_cap=out_cap)
     (r,), src, n_recv = router((dist.place_dp(mesh, pay.reshape(-1)),),
                                dist.place_dp(mesh, dest.reshape(-1)),
                                dist.place_dp(mesh, valid.reshape(-1)))

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gappadder_tpu import dna
+from gappadder import dna
 
 
 def test_encode_decode_roundtrip():

@@ -4,11 +4,11 @@ scaffold matching the planted truth."""
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.config import Config, Library
-from gappadder_tpu.io import fasta
-from gappadder_tpu.pipeline import collect, patch, preprocess, run
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder import dna
+from gappadder.config import Config, Library
+from gappadder.io import fasta
+from gappadder.pipeline import collect, patch, preprocess, run
+from gappadder.pipeline.workspace import Workspace
 
 import read_simulator
 
@@ -33,8 +33,8 @@ def _setup(tmp_path, rng, gap_len=150, L=2400, n_pairs=500,
         kmers=((25, 21), (31, 27)), min_kmer_count=min_kmer_count,
         libraries=(Library(bam=bam, insert_size=insert, std=std,
                            left_fq=lfq, right_fq=rfq),),
-        tpu=__import__("gappadder_tpu.config", fromlist=["TpuParams"])
-        .TpuParams(read_batch=1 << 12, use_pallas=False))
+        device=__import__("gappadder.config", fromlist=["DeviceParams"])
+        .DeviceParams(read_batch=1 << 12))
     return cfg, truth, (gs, ge)
 
 
@@ -147,7 +147,7 @@ def test_close_gap_over_2kb(tmp_path, rng):
 def test_reads_per_gap_cap_warns(tmp_path, rng):
     """A positive max_reads_per_gap must truncate LOUDLY, never
     silently."""
-    from gappadder_tpu.utils import log as gtlog
+    from gappadder.utils import log as gtlog
     import dataclasses
     gtlog.reset_cap_events()
     cfg, truth, (gs, ge) = _setup(tmp_path, rng, n_pairs=600)
@@ -164,7 +164,7 @@ def test_reads_per_gap_cap_warns(tmp_path, rng):
 def test_fixed_kmer_cap_warns(tmp_path, rng):
     """A positive max_distinct_kmers that saturates must warn (the old
     behavior dropped lexicographically-largest k-mers silently)."""
-    from gappadder_tpu.utils import log as gtlog
+    from gappadder.utils import log as gtlog
     import dataclasses
     gtlog.reset_cap_events()
     cfg, truth, (gs, ge) = _setup(tmp_path, rng, n_pairs=600)

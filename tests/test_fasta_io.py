@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import fasta
+from gappadder import dna
+from gappadder.io import fasta
 
 
 def _random_fasta(rng, path, n_rec=5, crlf=False, lowercase=False,
@@ -45,7 +45,7 @@ def test_chunked_matches_line_parser(tmp_path, rng, crlf, lowercase,
                   no_final_newline=nofinal)
     b = fasta.read_fasta_chunked(path)
     # the plain line-parser path (force small-file route)
-    import gappadder_tpu.io.fasta as fmod
+    import gappadder.io.fasta as fmod
     old = fmod._BIG_FASTA_BYTES
     try:
         fmod._BIG_FASTA_BYTES = 1 << 60
@@ -62,7 +62,7 @@ def test_chunk_boundaries_exact(tmp_path, rng):
     """Tiny chunk sizes force record/line splits across every boundary."""
     path = str(tmp_path / "g.fa")
     _random_fasta(rng, path, n_rec=8)
-    import gappadder_tpu.io.fasta as fmod
+    import gappadder.io.fasta as fmod
     old = fmod._BIG_FASTA_BYTES
     try:
         fmod._BIG_FASTA_BYTES = 1 << 60
@@ -77,7 +77,7 @@ def test_chunk_boundaries_exact(tmp_path, rng):
 
 
 def test_size_gate_routes_big_files(tmp_path, rng, monkeypatch):
-    import gappadder_tpu.io.fasta as fmod
+    import gappadder.io.fasta as fmod
     path = str(tmp_path / "g.fa")
     _random_fasta(rng, path, n_rec=3)
     called = {}

@@ -9,10 +9,10 @@ import dataclasses
 
 import numpy as np
 
-from gappadder_tpu.config import TpuParams
-from gappadder_tpu.io import fasta
-from gappadder_tpu.pipeline import collect, preprocess, run
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder.config import DeviceParams
+from gappadder.io import fasta
+from gappadder.pipeline import collect, preprocess, run
+from gappadder.pipeline.workspace import Workspace
 
 from test_end_to_end import _setup
 
@@ -43,12 +43,12 @@ def test_fused_matches_host_path(tmp_path, rng):
     cfg, truth, (gs, ge) = _setup(tmp_path, rng, n_pairs=600,
                                   err_rate=0.002)
     host = _run(dataclasses.replace(
-        cfg, tpu=dataclasses.replace(cfg.tpu, fused=False)), "host")
+        cfg, device=dataclasses.replace(cfg.device, fused=False)), "host")
     fused1 = _run(dataclasses.replace(
-        cfg, tpu=dataclasses.replace(cfg.tpu, fused=True)), "fused1")
+        cfg, device=dataclasses.replace(cfg.device, fused=True)), "fused1")
     fused8 = _run(dataclasses.replace(
-        cfg, tpu=dataclasses.replace(
-            cfg.tpu, fused=True, mesh_shape=(8,), gap_batch=8)), "fused8")
+        cfg, device=dataclasses.replace(
+            cfg.device, fused=True, mesh_shape=(8,), gap_batch=8)), "fused8")
 
     for got, name in ((fused1, "fused-1shard"), (fused8, "fused-8shard")):
         assert _store_view(got[2]) == _store_view(host[2]), name

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import fasta
-from gappadder_tpu.ops import gapscan
+from gappadder import dna
+from gappadder.io import fasta
+from gappadder.ops import gapscan
 
 
 def _genome_from_strs(seqs):
@@ -137,8 +137,8 @@ def test_host_twins_match_device_kernels(rng):
     jit kernels on randomized drafts (the pipeline picks the host path
     below HOST_SCAN_MAX, the device path above — same answers)."""
     import jax.numpy as jnp
-    from gappadder_tpu import dna
-    from gappadder_tpu.ops import gapscan
+    from gappadder import dna
+    from gappadder.ops import gapscan
 
     for trial in range(5):
         L = int(rng.integers(500, 4000))

@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops import kmers
+from gappadder import dna
+from gappadder.ops import kmers
 
 
 def _pack_np(s: str, k: int) -> tuple:

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops import merge_engine
-from gappadder_tpu.ops.merge_engine import MergeConfig
+from gappadder import dna
+from gappadder.ops import merge_engine
+from gappadder.ops.merge_engine import MergeConfig
 
 
 def _rand(rng, n):
@@ -339,7 +339,7 @@ def test_out_edge_cap_changes_answer_and_warns(rng):
     output must visibly differ from the unbounded (reference-exact)
     default. Reference behavior is the unbounded O(n^2) pair scan
     (ContigsCompactor.cpp:992-1100)."""
-    from gappadder_tpu.utils import log as gtlog
+    from gappadder.utils import log as gtlog
     # complete bipartite 2x2 around a shared 60bp junction: each A has
     # 2 out-edges and each B_R twin has 2 — capping at 1 cuts the
     # (A2, B2) pair in BOTH strand directions, losing that merge
@@ -364,7 +364,7 @@ def test_out_edge_cap_changes_answer_and_warns(rng):
 def test_candidate_cap_changes_answer_and_warns(rng):
     """max_candidates truncation on a many-pair input: warns and drops
     later pairs' merges."""
-    from gappadder_tpu.utils import log as gtlog
+    from gappadder.utils import log as gtlog
     core = _rand(rng, 300)
     ov = 60
     contigs = [core] + [np.concatenate([core[-ov:], _rand(rng, 150)])
@@ -464,7 +464,7 @@ def test_dedup_contigs_multi_matches_per_gap(rng):
 
 
 def test_refine_contigs_multi_matches_per_gap(rng):
-    from gappadder_tpu.pipeline import run as run_mod
+    from gappadder.pipeline import run as run_mod
     cfg = MergeConfig()
     items = []
     for gi in range(5):
@@ -488,8 +488,8 @@ def test_refine_merge_info_reporting_semantics(rng):
     stale provenance, like the binary rewriting its -o file empty),
     and None when the merge step did not run at all (no contigs after
     dedup, or the >1MB size guard)."""
-    from gappadder_tpu.pipeline import run as run_mod
-    from gappadder_tpu.pipeline.run import MERGE_SKIP_BASES
+    from gappadder.pipeline import run as run_mod
+    from gappadder.pipeline.run import MERGE_SKIP_BASES
     cfg = MergeConfig()
 
     # chain that merges -> non-empty lines

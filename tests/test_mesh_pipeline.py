@@ -1,13 +1,13 @@
-"""Whole pipeline with tpu.mesh_shape=(8,1): collect + assembly run
+"""Whole pipeline with device.mesh_shape=(8,1): collect + assembly run
 sharded over the virtual mesh and must still close the gap bit-exact."""
 
 import numpy as np
 
-from gappadder_tpu import dna
-from gappadder_tpu.config import Config, Library, TpuParams
-from gappadder_tpu.io import fasta
-from gappadder_tpu.pipeline import collect, preprocess, run
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder import dna
+from gappadder.config import Config, Library, DeviceParams
+from gappadder.io import fasta
+from gappadder.pipeline import collect, preprocess, run
+from gappadder.pipeline.workspace import Workspace
 
 import read_simulator
 
@@ -28,8 +28,8 @@ def test_pipeline_with_mesh(tmp_path, rng):
         working_folder=str(tmp_path / "work"), kmers=((25, 21),),
         libraries=(Library(bam=bam, insert_size=300, std=30,
                            left_fq=lfq, right_fq=rfq),),
-        tpu=TpuParams(read_batch=1 << 12, use_pallas=False,
-                      mesh_shape=(4, 2), mesh_axes=("dp", "sp")))
+        device=DeviceParams(read_batch=1 << 12,
+                            mesh_shape=(4, 2), mesh_axes=("dp", "sp")))
     ws = Workspace(cfg.workdir)
     genome = fasta.read_fasta(cfg.draft_genome)
     gaps = preprocess.run_preprocess(cfg, ws, genome=genome)

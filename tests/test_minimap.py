@@ -7,9 +7,9 @@ pre-aligned `bwa mem` BAMs, /root/reference/README.md:46-84).
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import fasta, fastq
-from gappadder_tpu.ops import minimap
+from gappadder import dna
+from gappadder.io import fasta, fastq
+from gappadder.ops import minimap
 
 
 def make_genome(rng, lengths=(3000, 2000)):
@@ -153,8 +153,8 @@ def test_selfmap_recruit_overlap(tmp_path, rng):
     the BAM path may recruit a few extra short-anchor clips)."""
     from test_end_to_end import _setup
     import dataclasses
-    from gappadder_tpu.pipeline import collect, preprocess
-    from gappadder_tpu.pipeline.workspace import Workspace
+    from gappadder.pipeline import collect, preprocess
+    from gappadder.pipeline.workspace import Workspace
 
     cfg, truth, (gs, ge) = _setup(tmp_path, rng)
     ws = Workspace(cfg.workdir)
@@ -189,8 +189,8 @@ def test_selfmap_full_pipeline_closes_gap(tmp_path, rng):
     assemble -> pick closes the planted gap bit-exactly."""
     import dataclasses
     from test_end_to_end import _setup
-    from gappadder_tpu.pipeline import collect, preprocess, run
-    from gappadder_tpu.pipeline.workspace import Workspace
+    from gappadder.pipeline import collect, preprocess, run
+    from gappadder.pipeline.workspace import Workspace
 
     cfg, truth, (gs, ge) = _setup(tmp_path, rng)
     lib = dataclasses.replace(cfg.libraries[0], bam=None)

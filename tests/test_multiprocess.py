@@ -42,7 +42,7 @@ def test_two_process_cli_pipeline(tmp_path, rng, n_procs, devs_per_proc):
     import numpy as np
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import read_simulator
-    from gappadder_tpu.io import fasta
+    from gappadder.io import fasta
 
     L, gl = 6000, 130
     truth = "".join(np.array(list("ACGT"))[rng.integers(0, 4, L)])
@@ -62,7 +62,7 @@ def test_two_process_cli_pipeline(tmp_path, rng, n_procs, devs_per_proc):
             "parameters": {"working_folder": workdir, "min_gap_size": 50,
                            "flank_length": 150, "nthreads": 1,
                            "verbose": 0},
-            "tpu": {"use_pallas": False, "read_batch": 4096,
+            "device": {"read_batch": 4096,
                     "mesh_shape": [8], "gap_batch": 8},
         }
         with open(tmp_path / name, "w") as fh:
@@ -70,7 +70,7 @@ def test_two_process_cli_pipeline(tmp_path, rng, n_procs, devs_per_proc):
         return str(tmp_path / name)
 
     # single-process baseline (same mesh shape on 8 local devices)
-    from gappadder_tpu.cli import main
+    from gappadder.cli import main
     cfg_sp = write_cfg("config_sp.json", "work_sp")
     assert main(["-c", "All", "-g", cfg_sp]) == 0
 
@@ -87,7 +87,7 @@ def test_two_process_cli_pipeline(tmp_path, rng, n_procs, devs_per_proc):
         port = free_port()
         procs = [
             subprocess.Popen(
-                [sys.executable, "-m", "gappadder_tpu.cli", "-c", "All",
+                [sys.executable, "-m", "gappadder.cli", "-c", "All",
                  "-g", cfg_mp, "--coordinator", f"127.0.0.1:{port}",
                  "--num-processes", str(n_procs),
                  "--process-id", str(pid),
@@ -121,7 +121,7 @@ def test_two_process_cli_pipeline(tmp_path, rng, n_procs, devs_per_proc):
         assert sp == mp_, fn
     filled = dict(fasta.iter_fasta(tmp_path / "work_mp" /
                                    "filled_scaffolds.fa"))
-    from gappadder_tpu import dna
+    from gappadder import dna
     assert dna.decode(filled["scaf0"]) == truth
 
 

@@ -4,11 +4,11 @@ windows and cross-library merge (BASELINE.md config 4 shape)."""
 
 import numpy as np
 
-from gappadder_tpu import dna
-from gappadder_tpu.config import Config, Library, TpuParams
-from gappadder_tpu.io import bam as bam_io, fasta
-from gappadder_tpu.pipeline import collect, patch, preprocess, run
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder import dna
+from gappadder.config import Config, Library, DeviceParams
+from gappadder.io import bam as bam_io, fasta
+from gappadder.pipeline import collect, patch, preprocess, run
+from gappadder.pipeline.workspace import Workspace
 
 import read_simulator
 
@@ -72,7 +72,7 @@ def test_multi_scaffold_two_libraries(tmp_path, rng):
             Library(bam=bamB, insert_size=800, std=80, left_fq=lB,
                     right_fq=rB),
         ),
-        tpu=TpuParams(read_batch=1 << 12, use_pallas=False))
+        device=DeviceParams(read_batch=1 << 12))
 
     ws = Workspace(cfg.workdir)
     genome = fasta.read_fasta(cfg.draft_genome)

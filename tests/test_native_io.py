@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gappadder_tpu.io import bam as bam_io
-from gappadder_tpu.io import fastq, native
+from gappadder.io import bam as bam_io
+from gappadder.io import fastq, native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native lib not built")
@@ -102,7 +102,7 @@ def test_bam_stream_matches_full_read(tmp_path, rng):
 def test_read_bam_any_stream_path(tmp_path, rng, monkeypatch):
     """The >threshold streaming route of read_bam_any returns the same
     Alignments as the direct decoders."""
-    from gappadder_tpu.pipeline import collect as col
+    from gappadder.pipeline import collect as col
     refs = [("c1", 2000)]
     recs = [dict(name=f"x{i}", flag=0x41, tid=0,
                  pos=int(rng.integers(0, 1900)), mapq=60,
@@ -124,7 +124,7 @@ def test_read_bam_any_stream_path(tmp_path, rng, monkeypatch):
 
 def test_bam_write_native_roundtrip(tmp_path, rng):
     """Columnar native writer -> both readers decode identical columns."""
-    from gappadder_tpu import dna
+    from gappadder import dna
     n, L = 2000, 100
     refs = [("scaf_a", 5000), ("scaf_b", 700)]
     names = [f"w{i}/1".encode() for i in range(n)]
@@ -174,7 +174,7 @@ def test_bam_write_native_roundtrip(tmp_path, rng):
 def test_bam_write_columns_fallback_matches_native(tmp_path, rng):
     """The Python fallback path of write_bam_columns produces the same
     decoded columns as the native writer."""
-    from gappadder_tpu.io import native as native_mod
+    from gappadder.io import native as native_mod
     n, L = 40, 60
     refs = [("s", 900)]
     kw = dict(
@@ -204,7 +204,7 @@ def test_bam_write_columns_fallback_matches_native(tmp_path, rng):
 def test_fastq_write_native_matches_python(tmp_path, rng):
     """Native buffered writer emits byte-identical FASTQ to the Python
     writer (incl. suffix renaming and row selection/order)."""
-    from gappadder_tpu.io import native as native_mod
+    from gappadder.io import native as native_mod
     n, L = 200, 80
     lens = rng.integers(10, L + 1, n).astype(np.int32)
     seq = np.full((n, L), 4, np.int8)
@@ -259,7 +259,7 @@ def _raw_bam_records(path):
 def test_bam_write_fallback_preserves_qual(tmp_path, rng):
     """ADVICE r1: the Python fallback must carry phred scores like the
     native path instead of emitting 0xFF."""
-    from gappadder_tpu.io import native as native_mod
+    from gappadder.io import native as native_mod
     n, L = 8, 30
     refs = [("s", 500)]
     qual = rng.integers(35, 70, (n, L)).astype(np.uint8)

@@ -8,9 +8,9 @@ tie-breaks and the exact-span fix, which this oracle reproduces)."""
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.pipeline import pick
-from gappadder_tpu.pipeline.pick import (FlankHit, UNCLIP, LEFT_CLIP,
+from gappadder import dna
+from gappadder.pipeline import pick
+from gappadder.pipeline.pick import (FlankHit, UNCLIP, LEFT_CLIP,
                                          RIGHT_CLIP, BOTH_CLIP)
 
 COMBOS = [(UNCLIP, UNCLIP), (UNCLIP, LEFT_CLIP), (UNCLIP, RIGHT_CLIP),

@@ -2,11 +2,11 @@ import os
 
 import numpy as np
 
-from gappadder_tpu import dna
-from gappadder_tpu.config import Config
-from gappadder_tpu.io import fasta
-from gappadder_tpu.pipeline import preprocess
-from gappadder_tpu.pipeline.workspace import Workspace
+from gappadder import dna
+from gappadder.config import Config
+from gappadder.io import fasta
+from gappadder.pipeline import preprocess
+from gappadder.pipeline.workspace import Workspace
 
 
 def _write_draft(tmp_path):

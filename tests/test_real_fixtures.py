@@ -9,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from gappadder_tpu.io import bam as bam_io, native
-from gappadder_tpu.ops import coverage as cov_ops
-from gappadder_tpu.tools import refiner
+from gappadder.io import bam as bam_io, native
+from gappadder.ops import coverage as cov_ops
+from gappadder.tools import refiner
 
 FIXDIR = "/root/reference/TERefiner/test_code"
 BAMS = [

@@ -26,8 +26,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops.merge_engine import MergeConfig, merge_contigs
+from gappadder import dna
+from gappadder.ops.merge_engine import MergeConfig, merge_contigs
 
 REF = "/root/reference/ContigsCompactor-v0.2.0/ContigsMerger"
 BIN_CACHE = "/tmp/gpt_ref_contigsmerger/ContigsMerger"
@@ -183,7 +183,7 @@ def test_merge_info_matches_reference_binary(ref_binary, tmp_path, rng):
     order, formed each NEW_CONTIG_MERGE_*) must agree with our
     merge_info_lines, as a multiset of strand-canonicalized member
     paths (numbering/orientation may legitimately differ)."""
-    from gappadder_tpu.ops.merge_engine import merge_info_lines
+    from gappadder.ops.merge_engine import merge_info_lines
     truth = rng.integers(0, 4, 800).astype(np.int8)
     frags = [truth[0:300], dna.revcomp(truth[250:520]), truth[470:800]]
     names = [f"c{i}" for i in range(len(frags))]
@@ -214,7 +214,7 @@ def test_merge_info_matches_reference_binary(ref_binary, tmp_path, rng):
 def test_merge_gml_matches_reference_binary(ref_binary, tmp_path, rng):
     """tmp.gml graph dump: byte-exact parity with the binary's
     OutputGML (GraphUtils.cpp:1187-1256) on a merge scenario."""
-    from gappadder_tpu.ops.merge_engine import merge_graph_gml
+    from gappadder.ops.merge_engine import merge_graph_gml
     truth = rng.integers(0, 4, 700).astype(np.int8)
     frags = [truth[0:300], truth[250:520], truth[470:700]]
     names = [f"c{i}" for i in range(len(frags))]

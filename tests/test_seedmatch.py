@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gappadder_tpu import dna
-from gappadder_tpu.ops import seedmatch
+from gappadder import dna
+from gappadder.ops import seedmatch
 
 
 def _contigs(rng, n, L):

@@ -15,9 +15,9 @@ import pytest
 
 import jax
 
-from gappadder_tpu import dna
-from gappadder_tpu.parallel import slice as sl
-from gappadder_tpu.parallel.mesh import make_mesh
+from gappadder import dna
+from gappadder.parallel import slice as sl
+from gappadder.parallel.mesh import make_mesh
 
 
 def run_slice(n_shards: int, gaps_per_shard: int, gap_len=64):

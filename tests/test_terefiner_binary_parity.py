@@ -25,10 +25,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import bam, fasta
-from gappadder_tpu.ops import sw_host
-from gappadder_tpu.tools import refiner
+from gappadder import dna
+from gappadder.io import bam, fasta
+from gappadder.ops import sw_host
+from gappadder.tools import refiner
 
 REF_BIN = "/root/reference/TERefiner_1"
 FIXDIR = "/root/reference/TERefiner/test_code"

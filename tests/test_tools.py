@@ -1,9 +1,9 @@
 import numpy as np
 
-from gappadder_tpu import dna
-from gappadder_tpu.io import bam as bam_io, fasta
-from gappadder_tpu.ops import coverage
-from gappadder_tpu.tools import evaluate, refiner, scaffold
+from gappadder import dna
+from gappadder.io import bam as bam_io, fasta
+from gappadder.ops import coverage
+from gappadder.tools import evaluate, refiner, scaffold
 
 
 class FakeAln:
@@ -112,8 +112,8 @@ def test_exact_per_base_coverage_with_cigars(tmp_path, rng):
     """Exact M-segment pileup (Coverage.cpp:14-141): interior deletions
     must advance the target cursor — the nmatch-span approximation gets
     this wrong; retained CIGARs must get it right."""
-    from gappadder_tpu.io import bam as bam_io
-    from gappadder_tpu.ops import coverage as cov_ops
+    from gappadder.io import bam as bam_io
+    from gappadder.ops import coverage as cov_ops
     refs = [("c0", 100)]
     # read: 10M5D10M at pos 0 -> covers [0,10) and [15,25)
     recs = [dict(name="r0", flag=0, tid=0, pos=0, mapq=60,
@@ -180,7 +180,7 @@ def test_seeded_placement_scales_to_large_genome(rng):
     indels — seeded (minimizer + windowed DP) placement in seconds,
     instead of the O(|genome| x |query|) full scan."""
     import time
-    from gappadder_tpu import dna
+    from gappadder import dna
 
     L = 10_000_000
     seq = rng.integers(0, 4, L).astype(np.int8)
@@ -219,7 +219,7 @@ def test_scaffold_overlap_merge_and_discard(rng):
     pairs with an anchored suffix/prefix overlap are trimmed-merged
     (dist field = -overlap); without one the connection is DISCARDED;
     the per-left-node ave_pe filter keeps only strong mates."""
-    from gappadder_tpu import dna as _dna
+    from gappadder import dna as _dna
     truth = rng.integers(0, 4, 520).astype(np.int8)
     A = truth[:300].copy()
     B = truth[280:].copy()                     # 20bp true overlap
